@@ -13,16 +13,16 @@ converges faster for the same chip time. Composes with ``--multichip``
 
 import sys
 
-from digital_earth_tpu.app.viewer import EarthViewer
+from digital_earth.app.viewer import EarthViewer
 
 if __name__ == "__main__":
     image_res = (1920, 1080)
     adaptive = 0.25 if "--adaptive" in sys.argv else 0.0
     if "--multichip" in sys.argv:
-        from digital_earth_tpu.parallel.mesh import (
+        from digital_earth.parallel.mesh import (
             MultiChipRenderer, make_render_mesh,
         )
-        from digital_earth_tpu.utils.cache import enable_compilation_cache
+        from digital_earth.utils.cache import enable_compilation_cache
 
         enable_compilation_cache()
         renderer = MultiChipRenderer(

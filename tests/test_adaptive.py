@@ -2,7 +2,7 @@
 
 The adaptive accumulate allocates extra samples to the pixel blocks with
 the highest estimated relative variance — the "fewer paths to the same
-image" route of docs/PERFORMANCE.md's ceiling analysis. These tests pin
+image" route of variance reduction. These tests pin
 its contracts: a frac>=1 pass is bit-identical to the uniform
 accumulate(), pixel estimates divide by their own per-pixel counts,
 selection targets high-variance content, and the adaptive state
@@ -12,10 +12,10 @@ checkpoints/restores.
 import numpy as np
 import pytest
 
-from digital_earth_tpu.assets.textures import build_atlas
-from digital_earth_tpu.assets.procgen import generate_earth_textures
-from digital_earth_tpu.render.params import TraceConfig
-from digital_earth_tpu.render.renderer import Renderer
+from digital_earth.assets.textures import build_atlas
+from digital_earth.assets.procgen import generate_earth_textures
+from digital_earth.render.params import TraceConfig
+from digital_earth.render.renderer import Renderer
 
 CFG = TraceConfig(max_bounces=3, land_march_steps=64, max_tracking_steps=256)
 

@@ -3,9 +3,9 @@ import os
 import numpy as np
 import pytest
 
-from digital_earth_tpu import constants as C
-from digital_earth_tpu.app.camera_controller import CameraController
-from digital_earth_tpu.app.config_io import (
+from digital_earth import constants as C
+from digital_earth.app.camera_controller import CameraController
+from digital_earth.app.config_io import (
     SceneConfig,
     load_config,
     save_config,

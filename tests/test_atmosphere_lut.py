@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu import constants as C
-from digital_earth_tpu.models import atmosphere_lut as atm
-from digital_earth_tpu.models import volume as vol
+from digital_earth import constants as C
+from digital_earth.models import atmosphere_lut as atm
+from digital_earth.models import volume as vol
 
 
 def _brute_force_integral(pos, direction, t0, t1, steps=60000):
@@ -80,7 +80,7 @@ def test_segment_integrals_match_brute_force():
                         vol.spectra_extinction_ozone(
                             jnp.arange(390.0, 831.0),
                             __import__(
-                                "digital_earth_tpu.assets.luts",
+                                "digital_earth.assets.luts",
                                 fromlist=["load_spectral_luts"],
                             ).load_spectral_luts().o3_crossec,
                         )
@@ -122,7 +122,7 @@ def test_transmittance_to_space_matches_brute_force():
     dirs_np = np.stack(dirs)
 
     wavelength = jnp.asarray(rng.uniform(400.0, 700.0, (n, 1)), dtype=jnp.float32)
-    from digital_earth_tpu.assets.luts import load_spectral_luts
+    from digital_earth.assets.luts import load_spectral_luts
 
     luts = load_spectral_luts()
     ext = jnp.stack(

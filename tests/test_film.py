@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu.assets.luts import load_crf_pack
-from digital_earth_tpu.render import film
+from digital_earth.assets.luts import load_crf_pack
+from digital_earth.render import film
 
 
 @pytest.fixture(scope="module")

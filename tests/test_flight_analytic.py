@@ -14,13 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import digital_earth_tpu.constants as C
-from digital_earth_tpu.assets.luts import load_spectral_luts
-from digital_earth_tpu.models import atmosphere_lut as atm
-from digital_earth_tpu.models import volume as vol
-from digital_earth_tpu.ops import math_utils as mu
-from digital_earth_tpu.render import pathtracer as pt
-from digital_earth_tpu.render.params import TraceConfig
+import digital_earth.constants as C
+from digital_earth.assets.luts import load_spectral_luts
+from digital_earth.models import atmosphere_lut as atm
+from digital_earth.models import volume as vol
+from digital_earth.ops import math_utils as mu
+from digital_earth.render import pathtracer as pt
+from digital_earth.render.params import TraceConfig
 
 
 @pytest.fixture(scope="module")

@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu import constants as C
-from digital_earth_tpu.models import volume as vol
-from digital_earth_tpu.render import pathtracer as pt
-from digital_earth_tpu.render.params import TraceConfig
+from digital_earth import constants as C
+from digital_earth.models import volume as vol
+from digital_earth.render import pathtracer as pt
+from digital_earth.render.params import TraceConfig
 
 CFG = TraceConfig(max_tracking_steps=4096)
 

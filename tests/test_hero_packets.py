@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu.assets.luts import load_spectral_luts
-from digital_earth_tpu.assets.procgen import generate_earth_textures
-from digital_earth_tpu.assets.textures import build_atlas
-from digital_earth_tpu.ops import spectral as sp
-from digital_earth_tpu.render import pathtracer as pt
-from digital_earth_tpu.render.params import TraceConfig, make_scene_params
+from digital_earth.assets.luts import load_spectral_luts
+from digital_earth.assets.procgen import generate_earth_textures
+from digital_earth.assets.textures import build_atlas
+from digital_earth.ops import spectral as sp
+from digital_earth.render import pathtracer as pt
+from digital_earth.render.params import TraceConfig, make_scene_params
 
 
 @pytest.fixture(scope="module")

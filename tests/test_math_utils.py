@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu.ops import math_utils as mu
+from digital_earth.ops import math_utils as mu
 
 
 class TestRsi:

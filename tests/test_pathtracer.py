@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu import constants as C
-from digital_earth_tpu.assets.luts import load_spectral_luts
-from digital_earth_tpu.assets.textures import build_atlas
-from digital_earth_tpu.assets.procgen import generate_earth_textures
-from digital_earth_tpu.ops import texture as tx
-from digital_earth_tpu.render import pathtracer as pt
-from digital_earth_tpu.render.params import TraceConfig, make_scene_params
+from digital_earth import constants as C
+from digital_earth.assets.luts import load_spectral_luts
+from digital_earth.assets.textures import build_atlas
+from digital_earth.assets.procgen import generate_earth_textures
+from digital_earth.ops import texture as tx
+from digital_earth.render import pathtracer as pt
+from digital_earth.render.params import TraceConfig, make_scene_params
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +76,7 @@ class TestIntersectLand:
             flat_atlas.topography, pos, dirs, jnp.float32(7800.0),
             jnp.ones(n, bool), CFG,
         )
-        from digital_earth_tpu.ops.math_utils import rsi
+        from digital_earth.ops.math_utils import rsi
 
         t_near, _ = rsi(pos, dirs, C.PLANET_R)
         got, t_near = np.asarray(got), np.asarray(t_near)
@@ -158,7 +158,7 @@ class TestTracePaths:
         rad = pt.trace_paths(
             jax.random.PRNGKey(0), pos, dirs, wl, scene, flat_atlas, luts, CFG
         )
-        from digital_earth_tpu.ops.spectral import plancks
+        from digital_earth.ops.spectral import plancks
 
         expected = float(plancks(C.SUN_TEMPERATURE, jnp.array(550.0)))
         assert np.asarray(rad).min() >= expected * 0.99
@@ -167,7 +167,7 @@ class TestTracePaths:
 def test_speckle_shaper():
     """Nightlight speckle field (reference pathtracer.py:272-282, rebuilt):
     deterministic, non-negative, and increasing with density."""
-    from digital_earth_tpu.render.pathtracer import speckle
+    from digital_earth.render.pathtracer import speckle
 
     p = jnp.asarray(np.random.RandomState(1).rand(64, 2) * 50.0)
     lo = np.asarray(speckle(p, jnp.full((64,), 0.1)))
@@ -182,7 +182,7 @@ def test_speckle_shaper():
 
 
 def test_nee_off_diagnostic(atlas):
-    """cfg.nee_off compiles the NEE path out (ADVICE r3): the render stays
+    """cfg.nee_off compiles the NEE path out: the render stays
     finite and can only lose energy vs the default estimator."""
     luts = load_spectral_luts()
     scene = make_scene_params()

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from digital_earth_tpu.assets.textures import build_atlas
-from digital_earth_tpu.assets.procgen import generate_earth_textures
-from digital_earth_tpu.render.params import TraceConfig
-from digital_earth_tpu.render.renderer import Renderer
+from digital_earth.assets.textures import build_atlas
+from digital_earth.assets.procgen import generate_earth_textures
+from digital_earth.render.params import TraceConfig
+from digital_earth.render.renderer import Renderer
 
 # Heavy integration file: the goldens cover the renderer end-to-end;
 # the fine-grained checks here take minutes on the 1-core CI box.
@@ -164,10 +164,10 @@ def test_compacted_stages_match_single_stage_energy():
     Exact equality is not expected (lanes draw different randomness after
     re-batching), so compare mean energy over many spp, and require
     determinism of the compacted path itself."""
-    from digital_earth_tpu.assets.procgen import generate_earth_textures
-    from digital_earth_tpu.assets.textures import build_atlas
-    from digital_earth_tpu.render.params import TraceConfig
-    from digital_earth_tpu.render.renderer import Renderer, _stage_bounds
+    from digital_earth.assets.procgen import generate_earth_textures
+    from digital_earth.assets.textures import build_atlas
+    from digital_earth.render.params import TraceConfig
+    from digital_earth.render.renderer import Renderer, _stage_bounds
 
     cfg_one = TraceConfig(
         max_bounces=8, land_march_steps=48, max_tracking_steps=256,

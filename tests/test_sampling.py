@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu.ops import math_utils as mu
-from digital_earth_tpu.ops import sampling as smp
+from digital_earth.ops import math_utils as mu
+from digital_earth.ops import sampling as smp
 
 N = 20000
 

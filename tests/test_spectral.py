@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu.assets.luts import load_spectral_luts
-from digital_earth_tpu.ops import spectral as sp
+from digital_earth.assets.luts import load_spectral_luts
+from digital_earth.ops import spectral as sp
 
 
 @pytest.fixture(scope="module")

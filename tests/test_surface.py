@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu.models import surface as srf
-from digital_earth_tpu.ops import math_utils as mu
+from digital_earth.models import surface as srf
+from digital_earth.ops import math_utils as mu
 
 
 def _dirs(key, n):

@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu.assets.procgen import generate_earth_textures
-from digital_earth_tpu.assets.textures import build_atlas, procedural_texture_atlas
-from digital_earth_tpu.ops import texture as tx
+from digital_earth.assets.procgen import generate_earth_textures
+from digital_earth.assets.textures import build_atlas, procedural_texture_atlas
+from digital_earth.ops import texture as tx
 
 
 def _tex(arr):
@@ -129,12 +129,12 @@ class TestRealFileLoading:
     (reference lib/textures.py:10-46, README.md:28-29); these tests exercise
     the actual file path — _load_image and load_texture_atlas reading PNGs
     from a textures/ directory — which the procedural fallback otherwise
-    hides (VERDICT r2 missing item 2)."""
+    hides."""
 
     def _write_tier0(self, tmp_path, h=16, w=32, skip=()):
         from PIL import Image
 
-        from digital_earth_tpu.assets.textures import _TIER_FILES
+        from digital_earth.assets.textures import _TIER_FILES
 
         rng = np.random.default_rng(11)
         written = {}
@@ -155,7 +155,7 @@ class TestRealFileLoading:
     def test_load_image_channel_handling(self, tmp_path):
         from PIL import Image
 
-        from digital_earth_tpu.assets.textures import _load_image
+        from digital_earth.assets.textures import _load_image
 
         rgb = np.random.default_rng(0).integers(0, 255, (8, 12, 3), dtype=np.uint8)
         gray = np.random.default_rng(1).integers(0, 255, (8, 12), dtype=np.uint8)
@@ -178,7 +178,7 @@ class TestRealFileLoading:
         )
 
     def test_atlas_from_real_files(self, tmp_path):
-        from digital_earth_tpu.assets.textures import load_texture_atlas
+        from digital_earth.assets.textures import load_texture_atlas
 
         written = self._write_tier0(tmp_path)
         atlas = load_texture_atlas(texture_dir=str(tmp_path), quality=0)
@@ -214,7 +214,7 @@ class TestRealFileLoading:
     def test_partial_download_fallback(self, tmp_path):
         """A missing file (partial NASA download) falls back procedurally
         for that texture only; present files still load from disk."""
-        from digital_earth_tpu.assets.textures import load_texture_atlas
+        from digital_earth.assets.textures import load_texture_atlas
 
         written = self._write_tier0(tmp_path, skip=("clouds", "stars"))
         atlas = load_texture_atlas(
@@ -228,7 +228,7 @@ class TestRealFileLoading:
             mat[:, 0:3], written["albedo"].reshape(-1, 3) / 255.0, atol=1e-6
         )
         # the missing clouds channel came from procgen, not the files
-        from digital_earth_tpu.assets.procgen import cached_earth_textures
+        from digital_earth.assets.procgen import cached_earth_textures
 
         proc = cached_earth_textures((16, 32), 7)
         clouds = np.asarray(tx._fetch_texel(atlas.clouds, ys, xs))
@@ -240,9 +240,9 @@ class TestRealFileLoading:
 
     def test_render_with_file_atlas(self, tmp_path):
         """End-to-end: a file-loaded atlas renders through the path tracer."""
-        from digital_earth_tpu.app.config_io import apply_config, load_config
-        from digital_earth_tpu.assets.textures import load_texture_atlas
-        from digital_earth_tpu.render.renderer import Renderer
+        from digital_earth.app.config_io import apply_config, load_config
+        from digital_earth.assets.textures import load_texture_atlas
+        from digital_earth.render.renderer import Renderer
 
         self._write_tier0(tmp_path, h=32, w=64)
         atlas = load_texture_atlas(texture_dir=str(tmp_path), quality=0)
@@ -258,7 +258,7 @@ class TestRealFileLoading:
 
 class TestUpsampledAtlas:
     """Device-side NN-upsample + row-gather pack (Tex2D.from_upsampled) —
-    the tier-2-scale bench path (bench.py, VERDICT r3 item 1)."""
+    the tier-2-scale bench path (bench.py, chip_smoke.py)."""
 
     @pytest.mark.parametrize(
         "shape,factor",
@@ -281,11 +281,11 @@ class TestUpsampledAtlas:
         upsampled atlas equals a host-built atlas of NN-upsampled planes."""
         import os
 
-        from digital_earth_tpu.assets.textures import (
+        from digital_earth.assets.textures import (
             build_atlas_arrays, cached_atlas_arrays, pack_atlas,
             upsampled_procedural_atlas,
         )
-        from digital_earth_tpu.assets.procgen import cached_earth_textures
+        from digital_earth.assets.procgen import cached_earth_textures
 
         base = (16, 32)
         packs = cached_atlas_arrays(base, seed=3, cache_dir=str(tmp_path))
@@ -315,7 +315,7 @@ class TestUpsampledAtlas:
             )
 
     def test_upsample_jitter_properties(self):
-        """Terrain-honesty jitter (VERDICT r4 item 6): deterministic,
+        """Terrain-honesty jitter: deterministic,
         channel-0-only, downward-only (mips stay conservative), zero stays
         zero (exact-ocean hits stay exact), and actually moves texels."""
         rng = np.random.default_rng(5)
@@ -340,7 +340,7 @@ class TestUpsampledAtlas:
         assert (rj[:, c0] != ra[:, c0]).mean() > 0.3
 
     def test_non_integer_factor_rejected(self):
-        from digital_earth_tpu.assets.textures import (
+        from digital_earth.assets.textures import (
             upsampled_procedural_atlas,
         )
 

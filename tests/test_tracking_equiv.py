@@ -1,7 +1,7 @@
 """Statistical equivalence of the accelerated trackers (render/pathtracer)
 against the reference-faithful naive trackers (render/tracking_naive).
 
-These are the tests that license the TPU-side redesigns (speculative K-step
+These are the tests that license the wavefront redesigns (speculative K-step
 tracking, cloud space-skipping with fused majorant mips, bracketed marching):
 each accelerated estimator must agree with its naive counterpart within Monte
 Carlo error on controlled inputs (SURVEY.md §4 'statistical tests').
@@ -14,14 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu import constants as C
-from digital_earth_tpu.assets.luts import load_spectral_luts
-from digital_earth_tpu.assets.procgen import cached_earth_textures
-from digital_earth_tpu.assets.textures import build_atlas
-from digital_earth_tpu.models import volume as vol
-from digital_earth_tpu.render import pathtracer as pt
-from digital_earth_tpu.render import tracking_naive as tn
-from digital_earth_tpu.render.params import TraceConfig
+from digital_earth import constants as C
+from digital_earth.assets.luts import load_spectral_luts
+from digital_earth.assets.procgen import cached_earth_textures
+from digital_earth.assets.textures import build_atlas
+from digital_earth.models import volume as vol
+from digital_earth.render import pathtracer as pt
+from digital_earth.render import tracking_naive as tn
+from digital_earth.render.params import TraceConfig
 
 CFG = TraceConfig(max_tracking_steps=4096)
 RES = (128, 256)
@@ -181,7 +181,7 @@ class TestFastLoopRng:
     CFGF = TraceConfig(max_tracking_steps=4096, fast_loop_rng=True)
 
     def test_uniformity_and_decorrelation(self):
-        from digital_earth_tpu.ops import rng as rr
+        from digital_earth.ops import rng as rr
 
         keys = rr.as_lane_keys(jax.random.PRNGKey(11), 512)
         us = np.asarray(

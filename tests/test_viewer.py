@@ -1,15 +1,17 @@
 """Hermetic tests of the web viewer's HTTP layer: a stub renderer stands in
-for the TPU, and requests go through a real in-process HTTP server."""
+for the accelerator, and requests go through a real in-process HTTP server."""
 
 import json
-import threading
+import sys
 import time
 import urllib.request
 
 import numpy as np
 import pytest
 
-from digital_earth_tpu.app.viewer import EarthViewer
+from digital_earth.app.config_io import SceneConfig
+from digital_earth.app.viewer import EarthViewer, render_offline, upscale_bilinear
+from digital_earth.utils.png import decode_png
 
 
 class StubRenderer:
@@ -83,16 +85,9 @@ def viewer(tmp_path):
         screenshot_dir=str(tmp_path / "shots"),
         port=0,
     )
-    v._running = True
-    t = threading.Thread(target=v._render_loop, daemon=True)
-    t.start()
-    server = v.make_server(host="127.0.0.1", port=0)  # the real handler
-    st = threading.Thread(target=server.serve_forever, daemon=True)
-    st.start()
-    v._test_port = server.server_address[1]
+    v._test_port = v.serve_background(port=0)  # the real handler
     yield v
-    v._running = False
-    server.shutdown()
+    assert v.stop(timeout=5)
 
 
 def _get(v, path):
@@ -161,16 +156,9 @@ class TestProgressiveEscalation:
             port=0,
         )
         v.preview_renderer = StubRenderer(image_res=(8, 5))
-        v._running = True
-        t = threading.Thread(target=v._render_loop, daemon=True)
-        t.start()
-        server = v.make_server(host="127.0.0.1", port=0)
-        st = threading.Thread(target=server.serve_forever, daemon=True)
-        st.start()
-        v._test_port = server.server_address[1]
+        v._test_port = v.serve_background(port=0)
         yield v
-        v._running = False
-        server.shutdown()
+        assert v.stop(timeout=5)
 
     def test_idle_frames_are_path_traced(self, esc_viewer):
         time.sleep(0.3)
@@ -212,13 +200,9 @@ class TestProgressiveEscalation:
         assert not esc_viewer._pending_keys
 
     def test_preview_frame_png_upscales_to_full_res(self, esc_viewer):
-        from PIL import Image
-        import io as _io
-
         esc_viewer._frame_source = "preview"
         png = esc_viewer._frame_png()
-        img = Image.open(_io.BytesIO(png))
-        assert img.size == (32, 18)
+        assert decode_png(png).shape == (18, 32, 3)
 
 
 class AdaptiveStubRenderer(StubRenderer):
@@ -256,16 +240,9 @@ class TestAdaptiveViewer:
             port=0,
             adaptive_frac=0.25,
         )
-        v._running = True
-        t = threading.Thread(target=v._render_loop, daemon=True)
-        t.start()
-        server = v.make_server(host="127.0.0.1", port=0)
-        st = threading.Thread(target=server.serve_forever, daemon=True)
-        st.start()
-        v._test_port = server.server_address[1]
+        v._test_port = v.serve_background(port=0)
         yield v
-        v._running = False
-        server.shutdown()
+        assert v.stop(timeout=5)
 
     def test_idle_loop_uses_adaptive_passes(self, ada_viewer):
         time.sleep(0.3)
@@ -281,3 +258,55 @@ class TestAdaptiveViewer:
             ada_viewer.renderer.mean_spp, abs=0.5
         )
         assert s["paths_per_sec"] > 0
+
+
+class TestNoImagingLibrary:
+    """The main path writes PNGs with the standard library alone: offline
+    renders and /frame.png must work where PIL is not installed."""
+
+    @pytest.fixture()
+    def no_pil(self, monkeypatch):
+        monkeypatch.setitem(sys.modules, "PIL", None)
+        monkeypatch.setitem(sys.modules, "PIL.Image", None)
+        with pytest.raises(ImportError):
+            import PIL  # noqa: F401
+
+    def test_render_offline_writes_png(self, no_pil, tmp_path):
+        out = tmp_path / "frame.png"
+        cfg = SceneConfig(
+            camera_pos=(0.0, 0.0, 3e7), look_at=(0.0, 0.0, 0.0),
+            up=(0.0, 1.0, 0.0), fov=0.2, aspect_scale=1.0, exposure=2.5,
+            crf_index=0, gamma=1.0, sun_angle=1.0, sun_path_rot=-0.7,
+        )
+        r = render_offline(cfg, spp=2, renderer=StubRenderer((16, 9)),
+                           out_path=str(out))
+        assert r.current_spp == 2
+        assert decode_png(out.read_bytes()).shape == (9, 16, 3)
+
+    def test_frame_png_endpoint(self, no_pil, viewer):
+        with _get(viewer, "/frame.png") as resp:
+            assert resp.headers["Content-Type"] == "image/png"
+            img = decode_png(resp.read())
+        assert img.shape == (9, 16, 3)
+
+    def test_screenshot(self, no_pil, viewer):
+        with _get(viewer, "/screenshot") as resp:
+            path = resp.read().decode()
+        with open(path, "rb") as f:
+            assert decode_png(f.read()).shape == (9, 16, 3)
+
+
+class TestUpscale:
+    def test_integer_factor_keeps_flat_regions(self):
+        img = np.zeros((4, 6, 3), np.uint8)
+        img[:, 3:] = 200
+        out = upscale_bilinear(img, 24, 16)
+        assert out.shape == (16, 24, 3)
+        assert (out[:, :10] == 0).all() and (out[:, 14:] == 200).all()
+        # the edge between the two halves is interpolated, monotonically
+        row = out[0, :, 0].astype(int)
+        assert (np.diff(row) >= 0).all() and 0 < row[12] < 200
+
+    def test_same_size_is_identity(self):
+        img = np.random.default_rng(0).integers(0, 256, (5, 7, 3), np.uint8)
+        np.testing.assert_array_equal(upscale_bilinear(img, 7, 5), img)

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from digital_earth_tpu import constants as C
-from digital_earth_tpu.models import volume as vol
-from digital_earth_tpu.ops import math_utils as mu
+from digital_earth import constants as C
+from digital_earth.models import volume as vol
+from digital_earth.ops import math_utils as mu
 
 N = 60000
 

@@ -3,10 +3,10 @@
 
 BASELINE.json metric line 1 is "wall-clock to a 1024-spp converged frame
 (Apollo 11 scene)". The production estimator traces hero-wavelength packets
-(4 wavelengths per path, measured 3.5x variance efficiency vs the
-reference's single-wavelength estimator — docs/PERFORMANCE.md round 2), so
-the 1024-single-wavelength-spp quality point is ~300 packet-spp; ``--spp``
-defaults there. Renders end to end on the chip, saves the frame plus a JSON
+(4 wavelengths per path, measured at ~3.5x lower spectral variance per
+path than the reference's single-wavelength estimator), so the
+1024-single-wavelength-spp quality point is ~300 packet-spp; ``--spp``
+defaults there. Renders end to end on the GPU, saves the frame plus a JSON
 sidecar with the measured wall-clock, and prints both.
 
 Usage (tier-2-scale textures, the reference's default experience):
@@ -26,7 +26,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--spp", type=int, default=300,
                     help="packet-spp (300 ~ 1024 single-wavelength spp at "
-                         "the measured 3.5x hero-packet efficiency)")
+                         "the hero packet's ~3.5x variance gain)")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--tier2", action="store_true",
@@ -37,13 +37,13 @@ def main():
     ap.add_argument("--out", default="docs/gallery/apollo_1080p_converged.png")
     args = ap.parse_args()
 
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
-    from digital_earth_tpu.app.config_io import load_config
-    from digital_earth_tpu.app.viewer import render_offline
-    from digital_earth_tpu.assets.textures import (
+    from digital_earth.app.config_io import load_config
+    from digital_earth.app.viewer import render_offline
+    from digital_earth.assets.textures import (
         load_texture_atlas, upsampled_procedural_atlas,
     )
 

@@ -6,22 +6,20 @@ integration tests) of all three shipped scenes — Apollo 11 (full Earth,
 short paths), florida (near-surface, texture-heavy), sunset hurricane
 (grazing sun, long cloud multi-scatter) — the BASELINE.md eval configs.
 Regenerate only when an *intentional* change to the estimator/scene defaults
-changes the image; CI compares bit-near-exactly on the CPU backend.
+changes the image; CI compares bit-near-exactly on the CPU backend, and
+chip_smoke.py (and the ``gpu``-marked test) compares a GPU render with them
+by the tolerances stated there.
+
+Importing this module touches no JAX backend; ``main()`` renders on the CPU.
 """
 
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
 SCENES = {
@@ -42,11 +40,11 @@ CASES = [
 
 
 def build_renderer(scene="apollo", mode="path"):
-    from digital_earth_tpu.app.config_io import apply_config, load_config
-    from digital_earth_tpu.assets.procgen import generate_earth_textures
-    from digital_earth_tpu.assets.textures import build_atlas
-    from digital_earth_tpu.render.params import TraceConfig
-    from digital_earth_tpu.render.renderer import Renderer
+    from digital_earth.app.config_io import apply_config, load_config
+    from digital_earth.assets.procgen import generate_earth_textures
+    from digital_earth.assets.textures import build_atlas
+    from digital_earth.render.params import TraceConfig
+    from digital_earth.render.renderer import Renderer
 
     atlas = build_atlas(generate_earth_textures((64, 128), seed=3))
     cfg = TraceConfig(max_bounces=3, land_march_steps=64, max_tracking_steps=256)
@@ -58,12 +56,21 @@ def build_renderer(scene="apollo", mode="path"):
     return r
 
 
+def render_case(scene, mode, spp):
+    """The golden render of one case on JAX's default device."""
+    r = build_renderer(scene, mode)
+    for _ in range(spp):
+        r.accumulate()
+    return r
+
+
 def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for scene, mode, spp in CASES:
-        r = build_renderer(scene, mode)
-        for _ in range(spp):
-            r.accumulate()
+        r = render_case(scene, mode, spp)
         buf = np.asarray(r.color_buffer)
         img = np.asarray(r.fetch_image())
         name = f"{scene}_{mode}"

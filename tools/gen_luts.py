@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Generate the spectral LUT assets under digital_earth_tpu/assets/data/.
+"""Generate the spectral LUT assets under digital_earth/assets/data/.
 
 Run offline (results are committed); mirrors the role of the reference's
 LUT/*_generator.py tools but everything here is generated from public data /
@@ -42,7 +42,7 @@ import numpy as np
 
 DATA_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "digital_earth_tpu",
+    "digital_earth",
     "assets",
     "data",
 )

@@ -30,7 +30,7 @@ def main():
     ap.add_argument("--any-hit", action="store_true")
     args = ap.parse_args()
 
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -38,10 +38,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from digital_earth_tpu import constants as C
-    from digital_earth_tpu.assets.textures import load_texture_atlas
-    from digital_earth_tpu.render import pathtracer as pt
-    from digital_earth_tpu.render.params import TraceConfig
+    from digital_earth import constants as C
+    from digital_earth.assets.textures import load_texture_atlas
+    from digital_earth.render import pathtracer as pt
+    from digital_earth.render.params import TraceConfig
 
     atlas = load_texture_atlas(
         procedural_resolution=(args.texture_res, 2 * args.texture_res)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Measured image-level fidelity: accelerated vs reference-faithful naive
-tracking, with statistical power (VERDICT r2 item 2).
+tracking, with statistical power.
 
 Protocol: render the same scene twice per estimator with independent seeds
 (A1, A2 accelerated; B1, B2 naive — identical LUTs/textures/scene, L=1 so
@@ -43,8 +43,8 @@ SCENES = {
 def render_mean(scene, cfg, atlas, seed, spp, image_res, tile):
     import numpy as np
 
-    from digital_earth_tpu.app.config_io import apply_config, load_config
-    from digital_earth_tpu.render.renderer import Renderer
+    from digital_earth.app.config_io import apply_config, load_config
+    from digital_earth.render.renderer import Renderer
 
     r = Renderer(image_res=image_res, atlas=atlas, tile_pixels=tile, seed=seed,
                  cfg=cfg)
@@ -102,12 +102,12 @@ def main():
     ap.add_argument("--march-steps", type=int, default=250)
     args = ap.parse_args()
 
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
-    from digital_earth_tpu.assets.textures import load_texture_atlas
-    from digital_earth_tpu.render.params import TraceConfig
+    from digital_earth.assets.textures import load_texture_atlas
+    from digital_earth.render.params import TraceConfig
 
     atlas = load_texture_atlas(
         procedural_resolution=(args.texture_res, 2 * args.texture_res)

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Per-op TPU profile of the render step's two schedules:
+"""Per-op device profile of the render step's two schedules:
 
 - stage 1: one spatially-coherent pixel-block tile (ray gen + bounce 0 +
   miss shading), the `render_tile` closure of renderer._render_step;
 - tail stage: one compacted-wavefront `run_bounces` call over a
   class-binned tile (the post-compaction workload).
 
-A full-frame trace overflows the profiler's event cap (PERFORMANCE.md), so
-each call is traced in isolation: warm up, trace a few repeats, then
+A full-frame trace can overflow the profiler's event cap, so each call is
+traced in isolation: warm up, trace a few repeats, then
 aggregate the XLA-Ops thread events from the chrome trace by op category.
 
 Usage: python tools/profile_trace.py [--which stage1|tail|both] [--scene N]
@@ -120,20 +120,20 @@ def main():
     ap.add_argument("--outdir", default="/tmp/de_trace")
     args = ap.parse_args()
 
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
     import jax
     import jax.numpy as jnp
 
-    from digital_earth_tpu.assets.textures import load_texture_atlas
-    from digital_earth_tpu.render import pathtracer as pt
-    from digital_earth_tpu.render.renderer import (
+    from digital_earth.assets.textures import load_texture_atlas
+    from digital_earth.render import pathtracer as pt
+    from digital_earth.render.renderer import (
         Renderer, _compact_by_alive, _stage_bounds,
     )
-    from digital_earth_tpu.ops import spectral as sp
-    from digital_earth_tpu.render.camera import cast_dirs
+    from digital_earth.ops import spectral as sp
+    from digital_earth.render.camera import cast_dirs
 
     atlas = load_texture_atlas(
         procedural_resolution=(args.texture_res, 2 * args.texture_res)

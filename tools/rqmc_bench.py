@@ -55,11 +55,11 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from digital_earth_tpu.app.config_io import apply_config, load_config
-    from digital_earth_tpu.assets.textures import load_texture_atlas
-    from digital_earth_tpu.render.params import TraceConfig
-    from digital_earth_tpu.render.renderer import Renderer
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.app.config_io import apply_config, load_config
+    from digital_earth.assets.textures import load_texture_atlas
+    from digital_earth.render.params import TraceConfig
+    from digital_earth.render.renderer import Renderer
+    from digital_earth.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     w, h = (int(x) for x in args.res.split("x"))

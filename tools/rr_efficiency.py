@@ -36,7 +36,7 @@ def main():
     ap.add_argument("--texture-res", type=int, default=1024)
     args = ap.parse_args()
 
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -44,10 +44,10 @@ def main():
 
     import numpy as np
 
-    from digital_earth_tpu.app.config_io import apply_config, load_config
-    from digital_earth_tpu.assets.textures import load_texture_atlas
-    from digital_earth_tpu.render.params import TraceConfig
-    from digital_earth_tpu.render.renderer import Renderer
+    from digital_earth.app.config_io import apply_config, load_config
+    from digital_earth.assets.textures import load_texture_atlas
+    from digital_earth.render.params import TraceConfig
+    from digital_earth.render.renderer import Renderer
 
     atlas = load_texture_atlas(
         procedural_resolution=(args.texture_res, 2 * args.texture_res)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Stage ablation bench: time one 1080p Apollo spp under variant TraceConfigs
-to decompose where the frame time goes. Run on the real TPU."""
+to decompose where the frame time goes. Run on the GPU; compare variants
+only within one process on one card."""
 
 import argparse
 import os
@@ -32,13 +33,13 @@ def main():
     )
     args = ap.parse_args()
 
-    from digital_earth_tpu.app.config_io import apply_config, load_config
-    from digital_earth_tpu.assets.textures import (
+    from digital_earth.app.config_io import apply_config, load_config
+    from digital_earth.assets.textures import (
         load_texture_atlas, upsampled_procedural_atlas,
     )
-    from digital_earth_tpu.render.params import TraceConfig
-    from digital_earth_tpu.render.renderer import Renderer
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.render.params import TraceConfig
+    from digital_earth.render.renderer import Renderer
+    from digital_earth.utils.cache import enable_compilation_cache
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     scene_file = os.path.join(root, "scenes", SCENES[args.scene])
@@ -99,10 +100,9 @@ def main():
         "floor10": {"march_floor_frac": 0.10},
         "floor05": {"march_floor_frac": 0.05},
         "floor02": {"march_floor_frac": 0.02},
-        # stage-1 tile size (pixel-block lanes; 2.9 ms device work per
-        # 1920-lane tile is while-carry/op-overhead-bound — sweep in ONE
-        # process: cross-process TPU-pool variance is ~20%, bigger than
-        # the effects under test)
+        # stage-1 tile size (pixel-block lanes) — sweep in ONE process:
+        # comparisons across processes or cards are noisier than the
+        # effects under test
         "tile1920": {"tile_pixels": 2048},
         "tile3840": {"tile_pixels": 4096},
         "tile7200": {"tile_pixels": 8192},
@@ -139,9 +139,8 @@ def main():
         "narrow512": {"tile_pixels": 2048, "loop_narrow": 512},
         "narrow_na1": {"tile_pixels": 2048, "loop_narrow_after": 1},
         "narrow_na4": {"tile_pixels": 2048, "loop_narrow_after": 4},
-        # probes per loop iteration, re-swept at 1920-lane tiles where the
-        # per-iteration cost is fixed-overhead-bound (the round-2 "flat"
-        # k sweep ran at 32K-lane tiles where taps dominated)
+        # probes per loop iteration at the default tile width, where the
+        # per-iteration cost may be fixed-overhead-bound
         "mk8": {"tile_pixels": 2048, "march_k": 8},
         "mk16": {"tile_pixels": 2048, "march_k": 16},
         "tk8": {"tile_pixels": 2048, "tracking_k": 8},
@@ -156,8 +155,8 @@ def main():
         # -0.55% +- 0.55 apollo B (inside the gate; docs/PARITY.md round 4)
         "floor_p005": {"tile_pixels": 2048, "march_floor_frac": 0.005},
         "floor_p01": {"tile_pixels": 2048, "march_floor_frac": 0.01},
-        # split floor: 0.02 on the bounce-0 march (62% of frame cost,
-        # bias-exonerated), 0.005 on secondary marches (the bias carrier)
+        # split floor: 0.02 on the bounce-0 march (bias-exonerated), 0.005
+        # on secondary marches (the bias carrier)
         "floor_sec005": {"tile_pixels": 2048,
                          "march_floor_frac_secondary": 0.005},
         "floor_sec01": {"tile_pixels": 2048,
@@ -193,8 +192,8 @@ def main():
                          "march_floor_frac": 0.25},
         "cert_floor10": {"tile_pixels": 2048, "march_certified_floor": True,
                          "march_floor_frac": 0.10},
-        # subsystem batching (round 5, tools/loop_cost.py): the march loop's
-        # per-CALL cost is width-FLAT 512..32K lanes, so one giant tile pays
+        # subsystem batching (tools/loop_cost.py measures whether the march
+        # loop's per-CALL cost is flat in width): if so, one giant tile pays
         # the global worst-lane trip count ONCE instead of per tile. The
         # binned_ct2k..16k variants above never tested the batching regime —
         # they kept ~the same tile count as the block path.

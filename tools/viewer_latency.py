@@ -1,22 +1,21 @@
 #!/usr/bin/env python
 """Measure the viewer's worst-case input-to-preview latency.
 
-VERDICT r2 item 6: with a full-frame path spp in flight, camera input used
-to wait ~11 s before the first preview frame. Round 3 stripes each spp into
-interruptible pixel chunks (Renderer.accumulate_interruptible); this harness
+With a full-frame path spp in flight, camera input would wait a whole spp
+before the first preview frame; the viewer stripes each spp into
+interruptible pixel chunks (Renderer.accumulate_interruptible). This harness
 measures the real number: start the viewer, wait for path-traced frames to
 be in flight, inject camera input at a random phase, and time until /state
 reports a preview-sourced frame newer than the input.
 
 Usage: python tools/viewer_latency.py [--width 1920 --height 1080]
-       [--texture-res 1024] [--trials 5] [--port 8790]
+       [--texture-res 1024] [--trials 5] [--port 8790] [--cpu]
 """
 
 import argparse
 import json
 import os
 import sys
-import threading
 import time
 import urllib.request
 
@@ -33,16 +32,16 @@ def main():
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 
-    from digital_earth_tpu.utils.cache import enable_compilation_cache
+    from digital_earth.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
-    if args.cpu or os.environ.get("DE_FORCE_CPU"):
+    if args.cpu:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
 
-    from digital_earth_tpu.app.viewer import EarthViewer
-    from digital_earth_tpu.assets.textures import load_texture_atlas
+    from digital_earth.app.viewer import EarthViewer
+    from digital_earth.assets.textures import load_texture_atlas
 
     viewer = EarthViewer(
         image_res=(args.width, args.height), port=args.port,
@@ -52,11 +51,8 @@ def main():
         config_path="/tmp/viewer_latency_config.txt",
         screenshot_dir="/tmp/viewer_latency_shots",
     )
-    server = viewer.make_server(port=args.port)
-    viewer._running = True
-    threading.Thread(target=viewer._render_loop, daemon=True).start()
-    threading.Thread(target=server.serve_forever, daemon=True).start()
-    base = f"http://localhost:{args.port}"
+    port = viewer.serve_background(port=args.port)
+    base = f"http://localhost:{port}"
 
     def get(path):
         with urllib.request.urlopen(base + path, timeout=30) as r:
@@ -80,11 +76,12 @@ def main():
     for i in range(args.trials):
         # random phase inside the spp: wait a bit between trials
         time.sleep(3.0 + 1.7 * i)
+        frame0 = state()["frame_id"]
         t_in = time.time()
         get("/input?keys=w")
         while True:
             s = state()
-            if s["frame_source"] == "preview":
+            if s["frame_source"] == "preview" and s["frame_id"] > frame0:
                 break
             time.sleep(0.05)
         dt = time.time() - t_in
@@ -103,6 +100,7 @@ def main():
         "resolution": [args.width, args.height],
         "spp_chunks": viewer.spp_chunks,
     }))
+    viewer.stop()
 
 
 if __name__ == "__main__":
